@@ -149,9 +149,8 @@ def covariance_denoise_model(Y, weights=None) -> Model:
     The round-5 large-slice SDP workload (``bench_workloads.py
     sdp128``): the data operator is DIAGONAL, so the quadratic block is
     O(N) and the per-iteration cost is the PSD projection itself — which
-    has no slice-size ceiling here (Jacobi eigh to 64, the polynomial
-    matrix-sign path above; 3.1x the reference's per-slice-LAPACK rate
-    at k = 128 on a v5e, 12.2x with the mixed recipe).  Batch per-lane
+    has no slice-size ceiling here (Jacobi eigh to 64, batched eigh or
+    the polynomial matrix-sign path above).  Batch per-lane
     ``Y`` via the ``(0, "y")`` override (pass ``sqrt(w) * Y.ravel()``,
     matching the operator's ``sqrt(w)`` scaling).
     """

@@ -1,65 +1,44 @@
-"""Pallas TPU kernels: fused multi-iteration ADMM for 2-block problems.
+"""Multi-iteration ADMM chunks for the two fused solver families.
 
-The XLA engine (:mod:`admmsolver_tpu.optimizer`) dispatches each iteration
-as a handful of fused HLO ops — every iteration streams the batched state
-(x0, x1, h ≈ megabytes) through HBM.  For the flagship 2-block
-identity-coupled family (basis pursuit / LASSO / λ-sweeps — reference
-``notebooks/basis_pursuit.ipynb``), this kernel instead keeps a *tile of
-problem instances resident in VMEM across many iterations*: per grid
-program it loads the shared eigenvector matrix (the spectral-shift solve
-basis, see :class:`~admmsolver_tpu.models.objectivefunc.SpectralShift`),
-its transpose, and a (TB, N) tile of per-lane state, then runs
-``n_iters`` Gauss–Seidel iterations with two MXU matmuls per iteration and
-zero HBM traffic for the state.  HBM is touched once per chunk instead of
-once per iteration — the hot loop becomes matmul-bound (speed-of-light for
-this algorithm on the MXU).
+Both chunks run ``n_iters`` ADMM iterations of one fixed family with the
+penalties frozen; the drivers (:mod:`admmsolver_tpu.parallel.fused` and
+:mod:`admmsolver_tpu.parallel.fused_spm`) evaluate residuals, convergence
+and the penalty update between chunks.
 
-Per-iteration math (identity couplings; derived from the engine's sweep,
-``optimizer.py`` ``ADMMPlan.sweep``, and verified against it in
-``tests/test_kernels.py``):
+**2-block identity-coupled family** (basis pursuit / LASSO / λ-sweeps —
+reference ``notebooks/basis_pursuit.ipynb``).  Per iteration (derived from
+the engine's sweep, ``optimizer.py`` ``ADMMPlan.sweep``, and verified
+against it in ``tests/test_kernels.py``):
 
     v   = alpha·A†y + h + mu·x1
     x0  = U ((U† v) / (alpha·lam + mu))     # spectral shifted-quadratic
     x1  = prox(x0 - h/mu)                   # soft-threshold or nonneg clip
     h  += mu (x1 - x0)                      # dual ascent
 
-float32 only (TPU-native); used as the accelerator of the mixed-precision
-low phase.  Penalty updates and convergence checks run between chunks at
-the XLA level (:mod:`admmsolver_tpu.parallel.fused`).
+Each iteration is two ``(B, N) x (N, R)`` GEMMs over the whole batch,
+which the GPU's BLAS serves directly, so :func:`fused_two_block_chunk` is
+a plain ``lax.fori_loop``.
+
+**3-block SpM family**: see the section comment above
+:func:`fused_spm_chunk`.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from . import linop
 
 __all__ = ["fused_two_block_chunk", "fused_spm_chunk"]
-
-
-def _i32(v):
-    """Index-map components as int32.
-
-    Under ``jax_enable_x64`` a plain-int index map traces to i64 values,
-    which Mosaic cannot legalize ("failed to legalize operation
-    'func.return' ... (i64, i64)"); pin every component to int32.
-    """
-    if isinstance(v, int):
-        return np.int32(v)
-    return jnp.asarray(v, jnp.int32)
 
 
 def _iteration_body(U, Ut, dinv, acy, mu, thr, prox: str, thin: bool,
                     carry):
     x0, x1, h, _ = carry
+    hi = linop.MATMUL_PRECISION
     v = acy + h + mu * x1
-    # Precision.HIGHEST: TPU f32 dots default to 1-pass bf16 (~1e-3
-    # relative error) which corrupts the shifted-quadratic solve.
-    hi = jax.lax.Precision.HIGHEST
     w = jnp.dot(v, U, preferred_element_type=jnp.float32,
                 precision=hi)  # U† v (U real)
     w = w * dinv
@@ -70,7 +49,7 @@ def _iteration_body(U, Ut, dinv, acy, mu, thr, prox: str, thin: bool,
         # r = rank(A†A) eigenvectors of the data range, dinv holds
         # 1/(alpha*lam + mu) - 1/mu, and the null-space response is the
         # closed-form v/mu term.  Same algebra as the XLA engine, so the
-        # oracle tests stay bit-for-bit comparable in f32.
+        # oracle tests stay comparable in f32.
         x0_new = x0_new + v / mu
     z = x0_new - h / mu
     if prox in ("l1", "l1_even"):
@@ -89,40 +68,11 @@ def _iteration_body(U, Ut, dinv, acy, mu, thr, prox: str, thin: bool,
     return (x0_new, x1_new, h_new, x0)
 
 
-def _chunk_kernel(U_ref, Ut_ref, dinv_ref, acy_ref, mu_ref, thr_ref,
-                  x0_ref, x1_ref, h_ref,
-                  x0o_ref, x1o_ref, ho_ref, x0p_ref,
-                  *, n_iters: int, prox: str, thin: bool):
-    U = U_ref[:]
-    Ut = Ut_ref[:]
-    dinv = dinv_ref[:]
-    acy = acy_ref[:]
-    mu = mu_ref[:]
-    thr = thr_ref[:]
-
-    carry = (x0_ref[:], x1_ref[:], h_ref[:], x0_ref[:])
-    carry = jax.lax.fori_loop(
-        0, n_iters,
-        lambda t, c: _iteration_body(U, Ut, dinv, acy, mu, thr, prox,
-                                     thin, c),
-        carry)
-    x0, x1, h, x0_prev = carry
-    x0o_ref[:] = x0
-    x1o_ref[:] = x1
-    ho_ref[:] = h
-    x0p_ref[:] = x0_prev
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_iters", "prox", "tile_b", "interpret", "thin"))
+@functools.partial(jax.jit, static_argnames=("n_iters", "prox", "thin"))
 def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
                           n_iters: int, prox: str = "l1",
-                          tile_b: int = 128,
-                          interpret: bool = False,
                           thin: bool = False):
-    """Run ``n_iters`` fused ADMM iterations on a batch of 2-block
-    problems.
+    """Run ``n_iters`` ADMM iterations on a batch of 2-block problems.
 
     Shapes: ``U`` (N, R) / ``Ut`` (R, N) shared f32 eigenbasis — the full
     basis (R = N, ``thin=False``, ``dinv`` = 1/(alpha·lam + mu)) or the
@@ -131,49 +81,11 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
     ``acy`` = alpha·A†y (B, N); ``mu``/``thr`` (B, 1); state
     ``x0``/``x1``/``h`` (B, N).  Returns (x0, x1, h, x0_prev) where
     ``x0_prev`` is the penultimate iterate (for the dual residual).
-    ``B`` must be a multiple of ``tile_b``; N and R multiples of 128.
     """
-    B, N = x0.shape
-    R = U.shape[1]
-    assert B % tile_b == 0, (B, tile_b)
-    assert (N % 128 == 0 and R % 128 == 0) or interpret, \
-        f"N={N}, R={R} must be multiples of 128 for the compiled TPU kernel"
-    grid = (B // tile_b,)
-
-    basis = pl.BlockSpec((N, R), lambda i: (_i32(0), _i32(0)),
-                         memory_space=pltpu.VMEM)
-    basis_t = pl.BlockSpec((R, N), lambda i: (_i32(0), _i32(0)),
-                           memory_space=pltpu.VMEM)
-    lane_mat = pl.BlockSpec((tile_b, N), lambda i: (_i32(i), _i32(0)),
-                            memory_space=pltpu.VMEM)
-    lane_spec = pl.BlockSpec((tile_b, R), lambda i: (_i32(i), _i32(0)),
-                             memory_space=pltpu.VMEM)
-    lane_scalar = pl.BlockSpec((tile_b, 1), lambda i: (_i32(i), _i32(0)),
-                               memory_space=pltpu.VMEM)
-
-    out_shape = [
-        jax.ShapeDtypeStruct((B, N), jnp.float32),  # x0
-        jax.ShapeDtypeStruct((B, N), jnp.float32),  # x1
-        jax.ShapeDtypeStruct((B, N), jnp.float32),  # h
-        jax.ShapeDtypeStruct((B, N), jnp.float32),  # x0_prev
-    ]
-    kernel = functools.partial(_chunk_kernel, n_iters=n_iters, prox=prox,
-                               thin=thin)
-    flops_per_iter = 2 * 2 * tile_b * N * R + 8 * tile_b * N
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[basis, basis_t, lane_spec, lane_mat,
-                  lane_scalar, lane_scalar,
-                  lane_mat, lane_mat, lane_mat],
-        out_specs=[lane_mat, lane_mat, lane_mat, lane_mat],
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=n_iters * flops_per_iter * grid[0],
-            bytes_accessed=(2 * N * R + 7 * B * N) * 4,
-            transcendentals=0),
-        interpret=interpret,
-    )(U, Ut, dinv, acy, mu, thr, x0, x1, h)
+    body = functools.partial(_iteration_body, U, Ut, dinv, acy, mu, thr,
+                             prox, thin)
+    return jax.lax.fori_loop(0, n_iters, lambda t, c: body(c),
+                             (x0, x1, h, x0))
 
 
 # =====================================================================
@@ -182,18 +94,17 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
 #
 # Target regime (BASELINE config #3, the reference's flagship SpM
 # workload, notebooks/spm.ipynb cells 10-11): small blocks (nl ~ 30 IR
-# coefficients, nw ~ 201 frequencies) and thousands of instances.  Per
-# XLA-engine iteration every per-lane operand streams through HBM and
-# per-op overheads dominate (BENCH_NOTES.md: per-lane factor matvecs,
-# projector GEMMs, dual updates are each microseconds of work dispatched
-# separately).  This kernel keeps ALL per-lane state VMEM-resident across
-# a chunk of iterations.
+# coefficients, nw ~ 201 frequencies) and thousands of instances.  One
+# iteration is a chain of about ten tiny per-lane operations (two skinny
+# GEMMs against the projector, a per-lane nl x nl matvec, two proxes, two
+# dual updates).  The chunk runs only that chain: the engine's general
+# sweep adds per-iteration residuals, penalty checks and the
+# block-elimination solve.
 #
-# Layout is FEATURE-MAJOR, (feature, batch): the batch rides the 128-wide
-# lane axis, per-lane elementwise math broadcasts along lanes, and the
-# shared projector contractions become ordinary MXU matmuls over the
-# (tiny, zero-padded) feature sublanes.  Per-lane 2-D factor operands
-# live as (nl*nl, B) with a trace-time reshape to (nl, nl, B).
+# Layout is FEATURE-MAJOR, (feature, batch): the batch is the contiguous
+# axis, per-lane elementwise math broadcasts along it, and the shared
+# projector contractions become ordinary matmuls over the tiny feature
+# axis.  The per-lane factor is (nl, nl, B).
 #
 # The constrained-LS prox is folded at FACTOR time into a per-lane
 # affine map (see parallel/fused_spm.py):
@@ -204,32 +115,29 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
 # algebraically identical to the engine's xi1/xi2/nu elimination
 # (reference objectivefunc.py:138-157), so each iteration is:
 #
-#     hk0 = -h10 - mu1*x1 - P†(h20 + mu2*x2)      # MXU (32,256)x(256,B)
-#     x0  = b2 - M hk0                             # per-lane VPU matvec
-#     x1  = soft_threshold(-(h10 - mu1 x0)/mu1)    # VPU
-#     Px0 = P x0                                   # MXU (256,32)x(32,B)
-#     x2  = max(-(h20 - mu2 Px0)/mu2, 0)           # VPU
+#     hk0 = -h10 - mu1*x1 - P†(h20 + mu2*x2)      # (nl,nw)x(nw,B)
+#     x0  = b2 - M hk0                             # per-lane matvec
+#     x1  = soft_threshold(-(h10 - mu1 x0)/mu1)
+#     Px0 = P x0                                   # (nw,nl)x(nl,B)
+#     x2  = max(-(h20 - mu2 Px0)/mu2, 0)
 #     h10 += mu1 (x1 - x0);  h20 += mu2 (x2 - Px0) # dual ascent
 #
 # (sweep order/signs per optimizer.py ADMMPlan for the SpM pair graph;
 # oracle-tested against BatchedSolver in tests/test_fused_spm.py).
 
 
-def _spm_iteration(Pt, P, M3, b2, mu1, mu2, thr1, carry):
+def _spm_iteration(Pt, P, M, b2, mu1, mu2, thr1, carry):
     x0, x1, x2, h10, h20, _ = carry
-    hi = jax.lax.Precision.HIGHEST
-    f32 = jnp.float32
+    hi = linop.MATMUL_PRECISION
 
-    hk0 = -h10 - mu1 * x1 - jnp.dot(Pt, h20 + mu2 * x2,
-                                    preferred_element_type=f32,
-                                    precision=hi)
-    # per-lane affine solve: x0[i,l] = b2[i,l] - sum_j M3[i,j,l] hk0[j,l]
-    x0n = b2 - jnp.sum(M3 * hk0[None, :, :], axis=1)
+    hk0 = -h10 - mu1 * x1 - jnp.dot(Pt, h20 + mu2 * x2, precision=hi)
+    # per-lane affine solve: x0[i,l] = b2[i,l] - sum_j M[i,j,l] hk0[j,l]
+    x0n = b2 - jnp.sum(M * hk0[None, :, :], axis=1)
 
     z1 = -(h10 - mu1 * x0n) / mu1
     x1n = jnp.sign(z1) * jnp.maximum(jnp.abs(z1) - thr1, 0.0)
 
-    Px0 = jnp.dot(P, x0n, preferred_element_type=f32, precision=hi)
+    Px0 = jnp.dot(P, x0n, precision=hi)
     z2 = -(h20 - mu2 * Px0) / mu2
     x2n = jnp.maximum(z2, 0.0)
 
@@ -238,90 +146,24 @@ def _spm_iteration(Pt, P, M3, b2, mu1, mu2, thr1, carry):
     return (x0n, x1n, x2n, h10n, h20n, x0)
 
 
-def _spm_chunk_kernel(Pt_ref, P_ref, M_ref, b2_ref, scal_ref,
-                      x0_ref, x1_ref, x2_ref, h10_ref, h20_ref,
-                      x0o_ref, x1o_ref, x2o_ref, h10o_ref, h20o_ref,
-                      x0p_ref, *, n_iters: int, nl_pad: int):
-    Pt = Pt_ref[:]
-    P = P_ref[:]
-    M3 = M_ref[:].reshape(nl_pad, nl_pad, M_ref.shape[-1])
-    b2 = b2_ref[:]
-    mu1 = scal_ref[0:1, :]
-    mu2 = scal_ref[1:2, :]
-    thr1 = scal_ref[2:3, :]
-
-    carry = (x0_ref[:], x1_ref[:], x2_ref[:], h10_ref[:], h20_ref[:],
-             x0_ref[:])
-    carry = jax.lax.fori_loop(
-        0, n_iters,
-        lambda t, c: _spm_iteration(Pt, P, M3, b2, mu1, mu2, thr1, c),
-        carry)
-    x0, x1, x2, h10, h20, x0_prev = carry
-    x0o_ref[:] = x0
-    x1o_ref[:] = x1
-    x2o_ref[:] = x2
-    h10o_ref[:] = h10
-    h20o_ref[:] = h20
-    x0p_ref[:] = x0_prev
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_iters", "tile_b", "interpret"))
+@functools.partial(jax.jit, static_argnames=("n_iters",))
 def fused_spm_chunk(Pt, P, M, b2, scal, x0, x1, x2, h10, h20,
-                    n_iters: int, tile_b: int = 256,
-                    interpret: bool = False):
-    """``n_iters`` fused SpM 3-block iterations, state VMEM-resident.
+                    n_iters: int):
+    """``n_iters`` SpM 3-block iterations with the penalties frozen.
 
-    Feature-major shapes: shared ``Pt`` (nl_pad, nw_pad) / ``P``
-    (nw_pad, nl_pad); per-lane ``M`` (nl_pad², B) flattened affine
-    factor, ``b2`` (nl_pad, B), ``scal`` (8, B) rows [mu1, mu2, thr1];
-    state ``x0``/``x1``/``h10`` (nl_pad, B), ``x2``/``h20`` (nw_pad, B).
-    ``B`` multiple of ``tile_b``; feature dims multiples of 8 (f32
-    sublane), ``tile_b`` multiple of 128 (lane).  Returns the advanced
-    state plus ``x0_prev`` (penultimate block-0 iterate, for the dual
-    residual).
+    Feature-major shapes: shared ``Pt`` (nl, nw) / ``P`` (nw, nl);
+    per-lane factor ``M`` (nl, nl, B), ``b2`` (nl, B), ``scal`` (3, B)
+    rows [mu1, mu2, thr1]; state ``x0``/``x1``/``h10`` (nl, B),
+    ``x2``/``h20`` (nw, B).  Returns the advanced state plus ``x0_prev``
+    (penultimate block-0 iterate, for the dual residual), in the
+    arguments' dtype.
+
+    A plain ``lax.fori_loop`` over the whole batch: on the GPU each
+    iteration is two skinny GEMMs and a few fused elementwise kernels.
+    A Triton kernel running a whole chunk per launch was measured slower
+    end to end (PERF.md).
     """
-    nl_pad, B = x0.shape
-    nw_pad = x2.shape[0]
-    assert B % tile_b == 0, (B, tile_b)
-    assert M.shape == (nl_pad * nl_pad, B), (M.shape, nl_pad, B)
-    grid = (B // tile_b,)
-
-    shared = lambda shape: pl.BlockSpec(shape,
-                                        lambda i: (_i32(0), _i32(0)),
-                                        memory_space=pltpu.VMEM)
-    lane = lambda f: pl.BlockSpec((f, tile_b),
-                                  lambda i: (_i32(0), _i32(i)),
-                                  memory_space=pltpu.VMEM)
-
-    out_shape = [
-        jax.ShapeDtypeStruct((nl_pad, B), jnp.float32),  # x0
-        jax.ShapeDtypeStruct((nl_pad, B), jnp.float32),  # x1
-        jax.ShapeDtypeStruct((nw_pad, B), jnp.float32),  # x2
-        jax.ShapeDtypeStruct((nl_pad, B), jnp.float32),  # h10
-        jax.ShapeDtypeStruct((nw_pad, B), jnp.float32),  # h20
-        jax.ShapeDtypeStruct((nl_pad, B), jnp.float32),  # x0_prev
-    ]
-    kernel = functools.partial(_spm_chunk_kernel, n_iters=n_iters,
-                               nl_pad=nl_pad)
-    gemm_flops = 2 * 2 * nl_pad * nw_pad * tile_b
-    lane_flops = 2 * nl_pad * nl_pad * tile_b + \
-        10 * (nl_pad + nw_pad) * tile_b
-    state_bytes = (nl_pad * nl_pad + 4 * nl_pad + 2 * nw_pad + 8) * B * 4
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[shared((nl_pad, nw_pad)), shared((nw_pad, nl_pad)),
-                  lane(nl_pad * nl_pad), lane(nl_pad), lane(8),
-                  lane(nl_pad), lane(nl_pad), lane(nw_pad),
-                  lane(nl_pad), lane(nw_pad)],
-        out_specs=[lane(nl_pad), lane(nl_pad), lane(nw_pad),
-                   lane(nl_pad), lane(nw_pad), lane(nl_pad)],
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=n_iters * (gemm_flops + lane_flops) * grid[0],
-            bytes_accessed=2 * state_bytes,
-            transcendentals=0),
-        interpret=interpret,
-    )(Pt, P, M, b2, scal, x0, x1, x2, h10, h20)
+    mu1, mu2, thr1 = scal[0:1], scal[1:2], scal[2:3]
+    body = functools.partial(_spm_iteration, Pt, P, M, b2, mu1, mu2, thr1)
+    return jax.lax.fori_loop(0, n_iters, lambda t, c: body(c),
+                             (x0, x1, x2, h10, h20, x0))

@@ -10,16 +10,17 @@ maps over slices on-device.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
+
+from . import linop
 
 
 def soft_threshold(y, lam):
     """Soft-thresholding shrinkage (reference ``_softmax``).
 
     ``y - lam`` where ``y > lam``; ``y + lam`` where ``y < -lam``; else 0
-    (``objectivefunc.py:335-355``).  Branch-free for the VPU.
+    (``objectivefunc.py:335-355``).  Branch-free, so XLA fuses it.
     """
     return jnp.sign(y) * jnp.maximum(jnp.abs(y) - lam, 0.0)
 
@@ -53,31 +54,23 @@ def psd_project(x, shape, axis):
     return jnp.moveaxis(proj, 0, axis).ravel()
 
 
-# PSD-projection dispatch (module-level so hardware A/B benches can
-# force any path):
+# PSD-projection dispatch (module-level so benches and tests can force
+# any path):
 #   n <= JACOBI_MAX_N            -> scan-rolled/unrolled Jacobi eigh
-#                                   (measured winner at small n; the
-#                                   scan envelope is validated to 256)
-#   n >  JACOBI_MAX_N, sign on   -> polynomial matrix-sign projection
+#                                   (loop-body-safe; the scan envelope
+#                                   is validated to 256)
+#   n >  JACOBI_MAX_N, default   -> batched jnp.linalg.eigh (exact)
+#   n >  JACOBI_MAX_N, "always"  -> polynomial matrix-sign projection
 #                                   (psd_project_sign): ANY slice size,
-#                                   pure GEMMs on the MXU
-#   n >  JACOBI_MAX_N, sign off  -> batched jnp.linalg.eigh (exact but
-#                                   in-loop pathological on TPU,
-#                                   benches/sdp_ablate2.py + lesson 15)
+#                                   GEMMs only
+# The boundaries are inherited, not measured on the GPU; see ROADMAP.
 JACOBI_MAX_N = 64
-#: f32 crossover sits lower (round-5 probe, K=256 slices, ms/iter:
-#: n=32 jacobi 0.27 vs sign 24.9; n=48 jacobi 47.0 vs sign 15.5; n=64
-#: 55.9 vs 45.4) — the sign path's GEMMs win f32 from n ~ 48 while the
-#: f64-emulated batched tiny GEMMs (lesson 6) keep Jacobi ahead in f64
-#: through 64.  ``None`` falls back to JACOBI_MAX_N (benches forcing a
-#: path set both).
+#: f32 boundary.  ``None`` falls back to JACOBI_MAX_N (benches forcing
+#: a path set both).
 JACOBI_MAX_N_F32: "int | None" = 32
-#: Above the Jacobi boundary: True (default) = polynomial matrix-sign
-#: projection ON TPU, exact batched eigh elsewhere (the in-loop eigh
-#: pathology the sign path fixes is TPU-only; CPU users keep LAPACK
-#: exactness); "always" = sign on every backend (tests/benches force
-#: the TPU math on CPU); False = always the eigh fallback.
-USE_SIGN_ABOVE_JACOBI = True
+#: Above the Jacobi boundary: ``"always"`` = polynomial matrix-sign
+#: projection; False (default) = exact batched eigh.
+USE_SIGN_ABOVE_JACOBI: "bool | str" = False
 
 
 def _jacobi_boundary(dtype) -> int:
@@ -87,9 +80,7 @@ def _jacobi_boundary(dtype) -> int:
 
 
 def _sign_active() -> bool:
-    return USE_SIGN_ABOVE_JACOBI == "always" or (
-        bool(USE_SIGN_ABOVE_JACOBI)
-        and jax.default_backend() == "tpu")
+    return USE_SIGN_ABOVE_JACOBI == "always"
 
 # Matrix-sign polynomial schedules (k_quintic, k_cubic) per precision.
 # The quintic is the tuned Newton–Schulz variant (coefficients from the
@@ -112,9 +103,8 @@ def psd_project_sign(herm):
     ``P(X) = (X + X sign(X)) / 2`` with ``sign(X)`` computed by a fixed
     odd-polynomial iteration on ``X / ||X||_F`` (quintic Newton–Schulz
     schedule + exact-cubic tail, see :data:`SIGN_SCHEDULES`).  Unlike
-    eigendecomposition this is MXU-native and works for ANY slice size
-    — measured ~10-25x the scan-rolled Jacobi at n = 128 on a v5e and
-    immune to the in-loop XLA-eigh pathology.  Accuracy: exact sign for
+    eigendecomposition this is GEMM-only and works for ANY slice size.
+    Accuracy: exact sign for
     eigenvalue magnitudes above ``delta * ||X||_F`` (delta per the
     schedule table); smaller eigenvalues err by at most their own
     magnitude.  The reference's per-slice exact eigh
@@ -123,7 +113,7 @@ def psd_project_sign(herm):
     bits = jnp.finfo(herm.dtype).bits
     k1, k2 = SIGN_SCHEDULES[64 if bits > 32 else 32]
     a, b, c = _SIGN_QUINTIC
-    hi = jax.lax.Precision.HIGHEST
+    hi = linop.MATMUL_PRECISION
     mm = lambda x, y: jnp.matmul(x, y, precision=hi)
 
     s = jnp.sqrt(jnp.sum(herm * herm, axis=(-2, -1), keepdims=True))
@@ -150,7 +140,7 @@ def svt_sign(x, tau):
     ``SVT(X, tau) = U (S - tau)_+ V^T`` for ``X = U S V^T``.  Compute
     the thin polar factor ``U_p = U V^T`` by the same odd-polynomial
     (quintic Newton–Schulz + cubic tail) iteration applied to the
-    rectangular ``X / ||X||_F`` — the classic TPU orthogonalizer — then
+    rectangular ``X / ||X||_F`` — a Newton–Schulz orthogonalizer — then
     ``H = U_p^T X = V S V^T`` and ``SVT = U_p @ psd_project_sign(H -
     tau I)``.  Accuracy: singular directions with ``s >= delta *
     ||X||_F`` (delta per :data:`SIGN_SCHEDULES`) are exact to the
@@ -169,7 +159,7 @@ def svt_sign(x, tau):
     bits = jnp.finfo(x.dtype).bits
     k1, k2 = SIGN_SCHEDULES[64 if bits > 32 else 32]
     a, b, c = _SIGN_QUINTIC
-    hi = jax.lax.Precision.HIGHEST
+    hi = linop.MATMUL_PRECISION
     mm = lambda p, q: jnp.matmul(p, q, precision=hi)
 
     s = jnp.sqrt(jnp.sum(x * x, axis=(-2, -1), keepdims=True))
@@ -194,17 +184,15 @@ def _psd_project_herm(herm):
     """PSD projection of exactly-Hermitian slices ``(K, n, n)``.
 
     Real n <= JACOBI_MAX_N: the loop-body-safe Jacobi
-    eigendecomposition (unrolled for n <= 16, scan-rolled above — XLA's
-    eigh degrades ~1000x when traced inside a vmapped solver loop body,
-    benches/sdp_ablate2.py).  Larger real slices: the polynomial
-    matrix-sign projection (:func:`psd_project_sign`) — ANY size, all
-    MXU GEMMs — unless :data:`USE_SIGN_ABOVE_JACOBI` is cleared, in
-    which case batched ``jnp.linalg.eigh``.  Complex Hermitian: the
-    realify embedding ``H = X + iY -> R = [[X, -Y], [Y, X]]`` — a
+    eigendecomposition (unrolled for n <= 16, scan-rolled above).
+    Larger real slices: batched ``jnp.linalg.eigh``, or the polynomial
+    matrix-sign projection (:func:`psd_project_sign`, GEMMs only) when
+    :data:`USE_SIGN_ABOVE_JACOBI` is ``"always"``.  Complex Hermitian
+    slices small enough for Jacobi (or on the sign path): the realify
+    embedding ``H = X + iY -> R = [[X, -Y], [Y, X]]`` — a
     *-isomorphism, so spectral functions commute with it: project the
     real symmetric 2n x 2n embedding with the same real dispatch and
-    map back.  All-real arithmetic (the TPU backend has no complex
-    support, CLAUDE.md).
+    map back.  Larger complex slices: complex ``jnp.linalg.eigh``.
     """
     n = herm.shape[-1]
     if jnp.iscomplexobj(herm):
@@ -220,31 +208,31 @@ def _psd_project_herm(herm):
             return Xp + 1j * Yp
         evals, evecs = jnp.linalg.eigh(herm)
         evals = jnp.maximum(evals, 0.0)
-        return jnp.einsum("kij,kj,klj->kil", evecs, evals, evecs.conj())
+        return jnp.einsum("kij,kj,klj->kil", evecs, evals, evecs.conj(),
+                          precision=linop.MATMUL_PRECISION)
     if n <= _jacobi_boundary(herm.dtype):
         from .linop import jacobi_eigh
 
         evals, evecs = jacobi_eigh(herm, sort=False)
         evals = jnp.maximum(evals, 0.0)
         if n <= 16:
-            # Rebuild V diag(w) V^T on the VPU as broadcast-multiply +
-            # reduce, NOT einsum/dot_general: batched TINY contractions
-            # lower to f64-emulated GEMM loops that cost ~100x more than
-            # the elementwise form (BENCH_NOTES lesson 6 — this one op
-            # was 7.7 of the 8.6 ms/iter of the f64 SDP engine).  The
-            # (K,n,n,n) intermediate is tiny for n <= 16.
+            # Rebuild V diag(w) V^T as broadcast-multiply + reduce, not
+            # einsum/dot_general: it fuses with the surrounding
+            # elementwise work instead of launching a batched tiny GEMM.
+            # The (K,n,n,n) intermediate is tiny for n <= 16.
             scaled = evecs * evals[..., None, :]            # (K, i, j)
             return jnp.sum(
                 scaled[..., :, None, :] * evecs[..., None, :, :],
                 axis=-1)                                    # (K, i, l)
         # n = 17..JACOBI_MAX_N: the (K,n,n,n) elementwise intermediate
         # no longer fits comfortably (n=64, K=4096, f64 -> 8 GB); a
-        # batched GEMM at this size is substantial enough for the MXU.
+        # batched GEMM at this size is worth a BLAS call.
         return jnp.matmul(evecs * evals[..., None, :],
                           evecs.swapaxes(-1, -2),
-                          precision="highest")
+                          precision=linop.MATMUL_PRECISION)
     if _sign_active():
         return psd_project_sign(herm)
     evals, evecs = jnp.linalg.eigh(herm)
     evals = jnp.maximum(evals, 0.0)
-    return jnp.einsum("kij,kj,klj->kil", evecs, evals, evecs.conj())
+    return jnp.einsum("kij,kj,klj->kil", evecs, evals, evecs.conj(),
+                      precision=linop.MATMUL_PRECISION)

@@ -1,6 +1,6 @@
 """The ADMM engine: Gauss–Seidel multi-block ADMM compiled with XLA.
 
-TPU-native counterpart of the reference's ``SimpleOptimizer``
+JAX counterpart of the reference's ``SimpleOptimizer``
 (``/root/reference/src/admmsolver/optimizer.py:121-341``).  Design:
 
 * The constraint graph, matrix structures, and block order are resolved in
@@ -466,8 +466,7 @@ class ADMMPlan:
         Drives the default state dtype: the reference is complex128
         unconditionally (optimizer.py:151,159), but for real-valued
         problems a real state is semantically identical (every reference
-        prox keeps real data real), 2× cheaper, and — on TPU backends
-        without complex128 support — the only runnable choice.
+        prox keeps real data real) and 2× cheaper.
         """
         leaves = []
         for op in self.model.E.values():
@@ -488,8 +487,6 @@ class ADMMPlan:
         """Initial primal/dual state (optimizer.py:141-160)."""
         if dtype is None:
             dtype = self.default_dtype()
-        from .backend import guard_complex
-        guard_complex(dtype, "the ADMM engine state")
         if x0 is not None:
             assert len(x0) == self.nblocks
             for k, x_ in enumerate(x0):

@@ -1,34 +1,31 @@
 """Benchmark: batched ADMM throughput on basis pursuit vs the reference.
 
+    python bench.py
+
 Workload: BASELINE.json config #1 — basis pursuit with dense A (256x512),
 two-block ADMM (LeastSquares + L1), the reference's headline notebook
-(``/root/reference/notebooks/basis_pursuit.ipynb``).  We solve a batch of
-independent instances in one compiled graph on the active backend (TPU
-under the driver) and report **instance-iterations per second per chip**.
+(``notebooks/basis_pursuit.ipynb``).  A batch of independent instances
+is solved in one compiled graph on one GPU, and the run reports
+**instance-iterations per second**.  It fails when JAX finds no GPU.
 
 ``vs_baseline`` = our throughput / the reference implementation's
 single-instance NumPy throughput (the reference has no parallelism —
-SURVEY.md §2.2 — so its chip-equivalent throughput IS its
-single-instance rate).  The denominator is PINNED in
-``BASELINE.json["measured"]`` (median of 7 repeats on this host's CPU);
-a live re-measure is reported separately as ``ref_iters_per_s_live`` so
-drift is visible without making the headline ratio jitter.
+SURVEY.md §2.2 — so its single-instance rate is its throughput).  The
+denominator is pinned in ``BASELINE.json["measured"]`` (a CPU rate of the
+NumPy reference, median of 7 repeats).
 
-``mfu_vs_emulation_ceiling`` makes the headline self-justifying: the
-per-iteration MXU work of the thin-spectral solve is two (B,N)x(N,r)
-GEMMs (4·N·r FLOP per instance-iteration), and the same process times a
-bare f64 GEMM of exactly that shape to get the achievable f64-emulation
-FLOP rate on this chip.  achieved/ceiling ≈ 1 means the flat ~1.3M
-inst-iters/s headline sits at the f64 emulation roofline (BENCH_NOTES
-lesson 8); a low ratio would reveal headroom.
-
-Prints exactly one JSON line.
+Prints the card (``device_kind``, ``nvidia-smi`` name and power limit) and
+then exactly one JSON line.
 """
 import json
+import os
+import subprocess
 import sys
 import time
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def _make_problem(M, N, B, seed=0):
@@ -42,17 +39,14 @@ def _make_problem(M, N, B, seed=0):
     return A, ys, xtrue
 
 
-def bench_tpu(A, ys, xtrue, niter, dtype_name="float64", repeats=3):
+def bench_batched(A, ys, xtrue, niter, dtype_name="float64", repeats=3):
     import jax
     import jax.numpy as jnp
-
-    jax.config.update("jax_enable_x64", True)
 
     from admmsolver_tpu import L1Regularizer, LeastSquares, Model, identity
     from admmsolver_tpu.parallel import BatchedSolver
 
     dtype = jnp.dtype(dtype_name)
-    B, M = ys.shape
     N = A.shape[1]
     model = Model(
         [LeastSquares(1.0, A, ys[0]), L1Regularizer(0.1, N)],
@@ -62,7 +56,7 @@ def bench_tpu(A, ys, xtrue, niter, dtype_name="float64", repeats=3):
 
     # rtol=0 -> no early exit; fixed-iteration throughput measurement.
     kw = dict(niter=niter, rtol=0.0, record_residuals=False)
-    res = bs.solve(ov, **kw)  # compile + run (warmup)
+    res = bs.solve(ov, **kw)  # compile + run (warmup, identical call)
     jax.block_until_ready(res.x)
     times = []
     for _ in range(repeats):
@@ -73,113 +67,54 @@ def bench_tpu(A, ys, xtrue, niter, dtype_name="float64", repeats=3):
     dt = float(np.median(times))
     # Recovery gate: the measured run must actually recover the sparse
     # signal (the reference's own anchor: max|x - x*| <= 1e-2 * max|x*|,
-    # /root/reference/test/test_optimizer.py:77-82).  A solver diverging
-    # to finite garbage must NOT post a throughput headline.
+    # reference test/test_optimizer.py:77-82).  A solver diverging to
+    # finite garbage must NOT post a throughput headline.
     err = float(np.abs(np.asarray(res.x[0], np.float64) - xtrue).max())
     thr = 1e-2 * float(np.abs(xtrue).max())
     assert err < thr, (
         f"bench solution failed recovery: max err {err:.3e} >= {thr:.3e}")
-    return B * niter / dt, dt, res
-
-
-def measure_emulation_ceiling(B, N, r, dtype_name="float64", rounds=50,
-                              repeats=3):
-    """Achievable f64(-emulated) GEMM FLOP/s for the workload's own
-    dominant contraction PAIR ((B,N)@(N,r) then (B,r)@(r,N) — exactly
-    the thin-spectral solve's two per-iteration GEMMs), chained
-    ``rounds`` times inside ONE jit so the ~25-40 ms per-dispatch floor
-    (BENCH_NOTES lesson 9) is amortized to noise."""
-    import jax
-    import jax.numpy as jnp
-
-    dt_ = jnp.dtype(dtype_name)
-    hi = jax.lax.Precision.HIGHEST
-    x = jnp.asarray(np.random.RandomState(1).randn(B, N) / np.sqrt(N),
-                    dt_)
-    u1 = jnp.asarray(np.random.RandomState(2).randn(N, r) / np.sqrt(N),
-                     dt_)
-    u2 = jnp.asarray(np.random.RandomState(3).randn(r, N) / np.sqrt(r),
-                     dt_)
-
-    @jax.jit
-    def chain(x):
-        def body(c, _):
-            w = jnp.matmul(c, u1, precision=hi)
-            return jnp.matmul(w, u2, precision=hi), None
-
-        c, _ = jax.lax.scan(body, x, None, length=rounds)
-        return c
-
-    jax.block_until_ready(chain(x))
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        jax.block_until_ready(chain(x))
-        times.append(time.perf_counter() - t0)
-    dt = float(np.median(times))
-    return rounds * 4.0 * B * N * r / dt
-
-
-def bench_reference(A, y, niter):
-    """Single-instance reference throughput (NumPy, this host's CPU) —
-    live drift check; the pinned denominator lives in BASELINE.json."""
-    sys.path.insert(0, "/root/reference/src")
-    try:
-        from admmsolver.matrix import identity as ref_identity
-        from admmsolver.objectivefunc import (L1Regularizer as RefL1,
-                                              LeastSquares as RefLS)
-        from admmsolver.optimizer import Model as RefModel
-        from admmsolver.optimizer import SimpleOptimizer as RefOpt
-    except ImportError:
-        return None
-    finally:
-        sys.path.remove("/root/reference/src")
-
-    N = A.shape[1]
-    p = RefModel([RefLS(1.0, A, y), RefL1(0.1, N)],
-                 [(1, 0, ref_identity(N), ref_identity(N))])
-    opt = RefOpt(p)
-    opt.solve(2)  # warm the factorization cache
-    t0 = time.perf_counter()
-    opt.solve(niter, rtol=0.0)
-    dt = time.perf_counter() - t0
-    return niter / dt
+    return ys.shape[0] * niter / dt, dt
 
 
 def main():
-    # B=4096 saturates one chip (BENCH_NOTES.md batch-scaling table)
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench.py needs a GPU; JAX reports {dev.platform!r}")
+    sys.path.insert(0, ROOT)
+    from admmsolver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {dev.device_kind} | {card}", flush=True)
+
     M, N, B = 256, 512, 4096
     niter = 200
     A, ys, xtrue = _make_problem(M, N, B)
+    ours_ips, dt = bench_batched(A, ys, xtrue, niter)
 
-    ours_ips, dt, res = bench_tpu(A, ys, xtrue, niter)
-
-    with open("BASELINE.json") as f:
+    with open(os.path.join(ROOT, "BASELINE.json")) as f:
         pinned = json.load(f).get("measured", {}).get(
             "reference_cpu_single_instance_iters_per_s")
-    ref_live = bench_reference(A, ys[0], 50)
-    ref_ips = pinned or ref_live
-    vs = (ours_ips / ref_ips) if ref_ips else None
-
-    # Roofline: thin-spectral solve = two (B,N)x(N,r) GEMMs per
-    # iteration, r = rank(A†A) = M here -> 4*N*r FLOP per instance-iter.
-    flop_per_inst_iter = 4.0 * N * M
-    achieved = ours_ips * flop_per_inst_iter
-    ceiling = measure_emulation_ceiling(B, N, M)
-
+    vs = (ours_ips / pinned) if pinned else None
     print(json.dumps({
-        "metric": "batched ADMM instance-iterations/s per chip "
+        "metric": "batched ADMM instance-iterations/s on one GPU "
                   f"(basis pursuit {M}x{N}, batch {B}, float64; reference "
-                  "baseline = its single-instance NumPy iters/s on this "
-                  "host CPU, pinned in BASELINE.json)",
-        "value": round(ours_ips, 1),
+                  "baseline = its single-instance NumPy iters/s on a CPU, "
+                  "pinned in BASELINE.json)",
+        "value": ours_ips,
         "unit": "instance-iters/s",
-        "vs_baseline": round(vs, 2) if vs else None,
+        "seconds": dt,
+        "vs_baseline": vs,
         "ref_iters_per_s_pinned": pinned,
-        "ref_iters_per_s_live": round(ref_live, 1) if ref_live else None,
-        "achieved_f64_gflop_per_s": round(achieved / 1e9, 1),
-        "emulation_ceiling_gflop_per_s": round(ceiling / 1e9, 1),
-        "mfu_vs_emulation_ceiling": round(achieved / ceiling, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "nvidia_smi": card,
     }))
 
 

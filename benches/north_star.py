@@ -6,11 +6,10 @@ compiled graph with per-lane early exit at an absolute primal+dual
 residual of 1e-10 (float64), and reports wall time, convergence fraction
 and iteration statistics as one JSON line.
 
-The multi-chip side of the north star (linear scaling over a pod slice)
-is exercised structurally by ``__graft_entry__.dryrun_multichip`` and
-``tests/test_sharding.py`` (instance-axis sharding + collective
-convergence reduction); only one physical chip is reachable from this
-host.  ``--cpu`` forces the CPU backend (small default batch).
+The multi-card side of the north star (batch sharding over four GPUs) is
+``python chip_smoke.py --four``.  ``--cpu`` forces the CPU backend (small
+default batch) as a rehearsal; its output says ``cpu``.  Without ``--cpu`` the script fails
+when JAX finds no GPU.
 """
 import json
 import os
@@ -30,6 +29,14 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
+    from admmsolver_tpu.utils.compile_cache import enable_compile_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu" and "--cpu" not in sys.argv[1:]:
+        sys.exit(f"north_star.py needs a GPU (or --cpu for a rehearsal); "
+                 f"JAX reports {dev.platform!r}")
+    enable_compile_cache()
+
     from admmsolver_tpu.models.applications import basis_pursuit_model
     from admmsolver_tpu.parallel import BatchedSolver
 
@@ -48,7 +55,7 @@ def main():
     ov = {(0, "y"): jnp.asarray(ys)}
     # Strided residual recording: one sample per 50 iterations.  Full
     # per-iteration histories at this scale would be 2 x (10240, 20000)
-    # f64 = 3.3 GB on a 16 GB chip; the stride keeps it at 66 MB while
+    # f64 = 3.3 GB; the stride keeps it at 66 MB while
     # still recording every lane's convergence curve.
     #
     # Recipe (round 5): over-relaxation 1.8 + mu0=10 with the adaptive
@@ -84,7 +91,7 @@ def main():
     print(json.dumps({
         "metric": f"time for {B} basis-pursuit instances to {tol:g} "
                   "absolute primal+dual residual (float64, 1 chip)",
-        "backend": jax.default_backend(),
+        "backend": dev.platform, "kind": dev.device_kind,
         "seconds": round(dt, 2),
         "converged_fraction": round(float(conv.mean()), 4),
         "iterations_median": int(np.median(iters)),

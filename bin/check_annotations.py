@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Static annotation gate that runs in ANY environment.
 
-mypy is the reference's first-class typing check
-(``/root/reference/bin/runtests.sh:4-5``) and runs in CI, but the
-hermetic TPU image has no mypy and no network.  This script is the
+mypy is the reference's first-class typing check and runs in CI, but
+an environment without network may have no mypy.  This script is the
 always-on local floor under it: it imports every module in
 ``admmsolver_tpu`` and forces every annotation in the package to
 RESOLVE via ``typing.get_type_hints`` — under ``from __future__ import

@@ -1,16 +1,16 @@
 #!/bin/bash
 # Test gate (mirror of the reference's bin/runtests.sh: pytest + static
-# typing as first-class checks, /root/reference/bin/runtests.sh:3-5).
+# typing as first-class checks).
 set -e
 cd "$(dirname "$0")/.."
 
 python -m pytest tests/ -x -q
 
-# Static typing GATE (reference treats mypy as a first-class check,
-# /root/reference/bin/runtests.sh:4-5).  Two layers:
+# Static typing GATE (the reference treats mypy as a first-class
+# check).  Two layers:
 #  1. bin/check_annotations.py ALWAYS runs (no dependencies): it forces
 #     every annotation in the package to resolve, the floor that works
-#     in the hermetic TPU image where mypy cannot be installed.
+#     in an environment where mypy cannot be installed.
 #  2. mypy runs when available (CI always installs it); when absent the
 #     skip is LOUD so round journals record it.
 python bin/check_annotations.py

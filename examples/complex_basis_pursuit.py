@@ -1,10 +1,10 @@
-"""Complex compressed sensing on a real-only backend.
+"""Complex compressed sensing in real arithmetic.
 
-The reference solver is complex128-first (``optimizer.py:151,159``); TPU
-backends have no complex128.  ``realify_model`` maps the complex model to
-an exactly trajectory-isomorphic real model (interleaved Re/Im lanes,
+The reference solver is complex128-first (``optimizer.py:151,159``).
+``realify_model`` maps the complex model to an exactly
+trajectory-isomorphic real model (interleaved Re/Im lanes,
 ``models/realify.py``), which then runs on any solver — here both the f64
-engine and, batched over a λ-sweep, the fused f32 Pallas kernel.
+engine and, batched over a λ-sweep, the real-only fused f32 solver.
 """
 import os
 
@@ -41,9 +41,9 @@ def main(small=None):
     x = np.asarray(re.decode_x(opt.x)[0])
     print(f"f64 engine:  max|x - x_true| = {np.abs(x - x_true).max():.2e}")
 
-    # batched lambda-sweep through the fused f32 Pallas kernel
+    # batched lambda-sweep through the fused f32 chunk solver
     lams = np.logspace(-0.5, -2, nlam)
-    fs = FusedTwoBlockSolver(re.model, tile_b=nlam)
+    fs = FusedTwoBlockSolver(re.model)
     ys = np.broadcast_to(np.asarray(encode(y)), (nlam, 2 * M))
     r = fs.solve({(0, "y"): np.array(ys), (1, "alpha"): lams},
                  niter=niter, rtol=1e-7)

@@ -527,7 +527,7 @@ def test_batched_psd_block_large_slice():
     oracles = {}
     old = (prox_mod.JACOBI_MAX_N, prox_mod.USE_SIGN_ABOVE_JACOBI)
     try:
-        # "always" forces the TPU-default sign path on this CPU run
+        # "always" forces the matrix-sign path
         prox_mod.USE_SIGN_ABOVE_JACOBI = "always"
         res = run()
         prox_mod.USE_SIGN_ABOVE_JACOBI = old[1]
@@ -550,8 +550,7 @@ def test_batched_psd_block_large_slice():
 
 
 class TestRecipeAutoSelection:
-    """The measured-best SDP configuration (BENCH_NOTES lessons 12/15)
-    encoded as ``solve(recipe=...)`` instead of folklore."""
+    """``solve(recipe=...)``: plain, mixed, and the auto choice."""
 
     def _sdp(self, k=6, K=2, B=3, seed=17):
         from admmsolver_tpu import SemiPositiveDefinitePenalty
@@ -592,41 +591,40 @@ class TestRecipeAutoSelection:
         # total budget preserved across the phase split
         np.testing.assert_array_equal(np.asarray(mixed.iterations), 400)
 
-    def test_auto_decision_matrix(self, monkeypatch):
-        """auto fires exactly for (TPU, f64, spectral prox, horizon >=
-        200); everything else stays plain."""
-        import jax
+    def test_auto_decision_matrix(self):
+        """auto selects the plain single-phase solve for every dtype,
+        model family and horizon: bit-identical to recipe='plain'."""
         import jax.numpy as jnp
 
         m, ys = self._sdp()
-        bs = BatchedSolver(m)
-        # CPU: never
-        assert not bs._auto_mixed_applies(1000, None)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert bs._auto_mixed_applies(200, None)
-        assert bs._auto_mixed_applies(1000, jnp.float64)
-        assert not bs._auto_mixed_applies(199, None)       # short horizon
-        assert not bs._auto_mixed_applies(1000, jnp.float32)
-        # GEMM-bound model (no spectral prox): mixed does not pay
-        bp = BatchedSolver(_bp_template(np.random.RandomState(0)
-                                        .randn(6, 12),
-                                        np.zeros(6)))
-        assert not bp._auto_mixed_applies(1000, None)
+        bp = _bp_template(np.random.RandomState(0).randn(6, 12),
+                          np.zeros(6))
+        cases = [(m, ys, jnp.float64, 200), (m, ys, jnp.float32, 200),
+                 (m, ys, jnp.float64, 10),
+                 (bp, np.random.RandomState(1).randn(3, 6), None, 200)]
+        for model, y, dt, niter in cases:
+            bs = BatchedSolver(model)
+            kw = dict(niter=niter, rtol=0.0, record_residuals=False,
+                      dtype=dt)
+            auto = bs.solve({(0, "y"): y}, **kw)
+            plain = bs.solve({(0, "y"): y}, recipe="plain", **kw)
+            for a, b in zip(auto.x, plain.x):
+                np.testing.assert_array_equal(np.asarray(a),
+                                              np.asarray(b))
 
-    def test_auto_routes_on_fake_tpu(self, monkeypatch):
-        """End-to-end: with the backend reported as TPU, plain solve()
-        at a 400-iteration horizon produces the mixed trajectory."""
-        import jax
-
+    def test_auto_routes_to_plain(self):
+        """End-to-end: the default solve() at a 400-iteration horizon
+        follows the plain trajectory, not the mixed one."""
         m, ys = self._sdp()
         bs = BatchedSolver(m)
-        forced = bs.solve({(0, "y"): ys}, niter=400, rtol=0.0,
-                          record_residuals=False, recipe="mixed")
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        auto = bs.solve({(0, "y"): ys}, niter=400, rtol=0.0,
-                        record_residuals=False)
-        for a, b in zip(auto.x, forced.x):
+        kw = dict(niter=400, rtol=0.0, record_residuals=False)
+        mixed = bs.solve({(0, "y"): ys}, recipe="mixed", **kw)
+        plain = bs.solve({(0, "y"): ys}, recipe="plain", **kw)
+        auto = bs.solve({(0, "y"): ys}, **kw)
+        for a, b in zip(auto.x, plain.x):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert any(not np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(auto.x, mixed.x))
 
 
 class TestSolveScan:
@@ -694,12 +692,11 @@ class TestSolveScan:
         assert np.isfinite(np.asarray(res.x[0])).all()
 
 
-def test_recipe_mixed_respects_dtype_and_warm_start_guard(monkeypatch):
+def test_recipe_mixed_respects_dtype_and_warm_start_guard():
     """Round-5 review regressions: (a) an explicit dtype= reaches the
-    mixed recipe's full-precision phase; (b) recipe='auto' never fires
-    on warm-started solves; (c) recipe='mixed' with niter=1 runs plain
-    instead of crashing."""
-    import jax
+    mixed recipe's full-precision phase; (b) recipe='auto' runs warm
+    starts plain; (c) recipe='mixed' with niter=1 runs plain instead of
+    crashing."""
     import jax.numpy as jnp
 
     from admmsolver_tpu import SemiPositiveDefinitePenalty
@@ -723,11 +720,10 @@ def test_recipe_mixed_respects_dtype_and_warm_start_guard(monkeypatch):
                     record_residuals=False)
     assert int(np.asarray(r1.iterations).max()) == 1
 
-    # (b) auto on a fake TPU must NOT route warm starts through f32
+    # (b) auto must not route warm starts through f32
     bs = BatchedSolver(m)  # f64
     cold = bs.solve(ov, niter=300, rtol=0.0, record_residuals=False,
                     recipe="plain")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     warm_auto = bs.solve(ov, x0=cold.x, h0=cold.h, mu0=cold.mu,
                          niter=300, rtol=0.0, record_residuals=False)
     warm_plain = bs.solve(ov, x0=cold.x, h0=cold.h, mu0=cold.mu,

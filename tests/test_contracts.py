@@ -77,7 +77,7 @@ def test_fused_two_block_rejects_l1_offset():
          L1Regularizer(0.1, N, offset=rng.randn(N))],
         [(1, 0, identity(N), identity(N))])
     with pytest.raises(ValueError, match="offset"):
-        FusedTwoBlockSolver(m, tile_b=4)
+        FusedTwoBlockSolver(m)
 
 
 def test_fused_spm_rejects_l1_offset():
@@ -131,7 +131,7 @@ def test_fused_spm_mixed_validates_record_residuals_and_overrides():
     s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=8, nw=17,
                                                     noise=1e-4)
     model = spm_model(s, np.asarray(g), prj_sum, prj_w, alpha_l1=1e-3)
-    fs = FusedSpMSolver(model, tile_b=4)
+    fs = FusedSpMSolver(model)
     ys = np.broadcast_to(np.asarray(g), (4, len(np.asarray(g)))).copy()
     with pytest.raises(ValueError, match="stride must be >= 1"):
         fs.solve_mixed({(0, "y"): ys}, niter_low=4, niter=4,
@@ -151,7 +151,7 @@ def test_fused_spm_done0_lanes_frozen():
                                                     noise=1e-4)
     g = np.asarray(g)
     model = spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-3)
-    fs = FusedSpMSolver(model, tile_b=4)
+    fs = FusedSpMSolver(model)
     ys = np.broadcast_to(g, (4, g.size)).copy()
     done0 = np.array([False, True, False, True])
     r = fs.solve({(0, "y"): ys}, niter=30, mu0=0.1, done0=done0)
@@ -171,7 +171,7 @@ def test_fused_two_block_done0_lanes_frozen():
     m = Model(
         [LeastSquares(1.0, A, A @ rng.randn(N)), L1Regularizer(0.1, N)],
         [(1, 0, identity(N), identity(N))])
-    fs = FusedTwoBlockSolver(m, tile_b=4)
+    fs = FusedTwoBlockSolver(m)
     ys = rng.randn(B, M)
     done0 = np.array([True, False, False, False])
     r = fs.solve({(0, "y"): ys}, niter=30, done0=done0)

@@ -1,4 +1,5 @@
-"""Determinism checks (SURVEY.md §5: the TPU analogue of race detection —
+"""Determinism checks (SURVEY.md §5: the accelerator analogue of race
+detection —
 same inputs must give bitwise-identical results across runs)."""
 import numpy as np
 

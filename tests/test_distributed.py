@@ -2,7 +2,7 @@
 entry point.
 
 The reference has nothing to distribute (SURVEY.md §2.2); §5 mandates a
-``jax.distributed`` backend for the TPU build.  This test actually
+``jax.distributed`` backend.  This test actually
 EXECUTES it: two separate OS processes, each with 2 virtual CPU
 devices, form one 4-device cluster via ``init_distributed`` (gloo
 collectives, localhost coordinator).  Both run the ordinary

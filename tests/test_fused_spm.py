@@ -1,6 +1,6 @@
-"""Fused SpM 3-block kernel tests (interpret mode on CPU; the XLA engine
-is the oracle — the kernel must reproduce the iteration math, including
-the constrained-LS elimination folded into the affine factor)."""
+"""Fused SpM 3-block solver tests (the XLA engine is the oracle — the
+chunk must reproduce the iteration math, including the constrained-LS
+elimination folded into the affine factor)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -23,7 +23,7 @@ def test_fused_spm_matches_engine_short(spm_setup):
     """Short horizon: per-iteration f32 state match (through the
     iteration-0 penalty boundary)."""
     model, gs = spm_setup
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     rf = fs.solve({(0, "y"): gs}, niter=21, mu0=0.1)
     rb = BatchedSolver(model).solve({(0, "y"): gs}, niter=21, mu0=0.1,
                                     dtype=jnp.float32)
@@ -39,7 +39,7 @@ def test_fused_spm_matches_engine_long(spm_setup):
     """Long horizon through many penalty updates: same fixed-point
     neighborhood, penalties within one balancing step."""
     model, gs = spm_setup
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     rf = fs.solve({(0, "y"): gs}, niter=1501, mu0=0.1, rtol=1e-6)
     rb = BatchedSolver(model).solve({(0, "y"): gs}, niter=1501, mu0=0.1,
                                     rtol=1e-6, dtype=jnp.float32)
@@ -55,7 +55,7 @@ def test_fused_spm_solution_properties(spm_setup):
     converged lanes flagged."""
     model, gs = spm_setup
     s, g, prj_sum, prj_w, omega, rho = synthetic_spm_data(nl=12, nw=25)
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     rf = fs.solve({(0, "y"): gs}, niter=4000, mu0=0.1, atol=1e-6)
     assert bool(np.all(np.asarray(rf.converged)))
     x2 = np.asarray(rf.x[2])
@@ -79,7 +79,7 @@ def test_fused_spm_plain_ls_block():
          NonNegativePenalty(nw)],
         [(0, 1, identity(nl), identity(nl)),
          (0, 2, P, identity(nw))])
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     rf = fs.solve({(0, "y"): ys}, niter=120)
     rb = BatchedSolver(model).solve({(0, "y"): ys}, niter=120,
                                     dtype=jnp.float32)
@@ -93,7 +93,7 @@ def test_fused_spm_alpha_overrides(spm_setup):
     model, gs = spm_setup
     B = gs.shape[0]
     alphas = np.linspace(5e-4, 5e-3, B)
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     rf = fs.solve({(0, "y"): gs, (1, "alpha"): alphas}, niter=80, mu0=0.1)
     rb = BatchedSolver(model).solve(
         {(0, "y"): gs, (1, "alpha"): alphas}, niter=80, mu0=0.1,
@@ -122,7 +122,7 @@ def test_fused_spm_mixed_precision_handoff(spm_setup):
     import jax.numpy as jnp
 
     model, gs = spm_setup
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     mixed = fs.solve_mixed({(0, "y"): gs}, niter_low=600, niter=300,
                            mu0=0.1, rtol=0.0, record_residuals=False)
     pure = BatchedSolver(model, dtype=jnp.float64).solve(
@@ -141,7 +141,7 @@ def test_fused_spm_mixed_one_jit_matches_two_dispatch(spm_setup):
     """The one-jit composite (kernel phase + promotion + engine polish)
     reproduces the two-dispatch driver exactly."""
     model, gs = spm_setup
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     ov = {(0, "y"): gs}
     kw = dict(niter_low=200, niter=100, mu0=0.1, rtol=0.0,
               record_residuals=False)
@@ -163,7 +163,7 @@ def test_fused_spm_rejects_unsupported_overrides(spm_setup):
     per-instance operator) must raise, not silently solve the template
     problem (round-4 advisor, fused_spm.py)."""
     model, gs = spm_setup
-    fs = FusedSpMSolver(model, tile_b=2)
+    fs = FusedSpMSolver(model)
     B = gs.shape[0]
     nl = model.functions[0].size_x
     bad = {(0, "y"): gs, (0, "A"): np.zeros((B, gs.shape[1], nl))}
@@ -179,25 +179,19 @@ def test_fused_spm_rejects_unsupported_overrides(spm_setup):
 
 
 def test_fused_spm_nontile_batch_pad_trim(spm_setup):
-    """B not a tile multiple goes through the pad/trim programs (the
-    main program is keyed on the padded Bp) and matches the aligned
-    run lane-for-lane."""
+    """Any batch size runs as it is, with no padding: a sub-batch solves
+    lane-for-lane like the full batch (lanes are independent), and each
+    batch size compiles its own program."""
     model, gs = spm_setup
-    fs = FusedSpMSolver(model, tile_b=4)     # B=6 -> Bp=8
+    fs = FusedSpMSolver(model)
     r = fs.solve({(0, "y"): gs}, niter=40, mu0=0.1)
-    fs2 = FusedSpMSolver(model, tile_b=2)    # B=6 == Bp
-    r2 = fs2.solve({(0, "y"): gs}, niter=40, mu0=0.1)
     for k in range(3):
         assert np.asarray(r.x[k]).shape[0] == gs.shape[0]
-        np.testing.assert_allclose(np.asarray(r.x[k]),
-                                   np.asarray(r2.x[k]), atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(r.iterations),
-                                  np.asarray(r2.iterations))
-    # and the program cache is keyed on Bp: a second, different raw B
-    # with the same padded size must NOT create a new main program
     n_main = sum(1 for k in fs._run_cache if k[0] == "solve")
-    gs5 = gs[:5]
-    r5 = fs.solve({(0, "y"): gs5}, niter=40, mu0=0.1)
-    assert sum(1 for k in fs._run_cache if k[0] == "solve") == n_main
-    np.testing.assert_allclose(np.asarray(r5.x[0]),
-                               np.asarray(r2.x[0])[:5], atol=1e-6)
+    r5 = fs.solve({(0, "y"): gs[:5]}, niter=40, mu0=0.1)
+    assert sum(1 for k in fs._run_cache if k[0] == "solve") == n_main + 1
+    for k in range(3):
+        np.testing.assert_allclose(np.asarray(r5.x[k]),
+                                   np.asarray(r.x[k])[:5], atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(r5.iterations),
+                                  np.asarray(r.iterations)[:5])

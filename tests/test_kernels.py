@@ -1,5 +1,5 @@
-"""Pallas fused-kernel tests (interpret mode on CPU; the engine is the
-oracle — the kernel must reproduce the XLA iteration math)."""
+"""Fused-chunk tests (the engine is the oracle — the chunks must
+reproduce the XLA engine's iteration math)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -31,7 +31,7 @@ def _setup(B=8, M=64, N=128, seed=0):
 def test_fused_matches_engine_l1():
     A, ys, _ = _setup()
     t = _bp(A, ys[0])
-    fs = FusedTwoBlockSolver(t, tile_b=4)
+    fs = FusedTwoBlockSolver(t)
     # strict short-horizon match: per-iteration f32 noise between the
     # kernel's and the engine's (equivalent) contraction orders is ~3e-5
     # and random-walks through the L1 switching dynamics, so exact state
@@ -60,7 +60,7 @@ def test_fused_matches_engine_nonneg():
     A, ys, _ = _setup(seed=3)
     ys = np.abs(ys)
     t = _bp(A, ys[0], block1="nonneg")
-    fs = FusedTwoBlockSolver(t, tile_b=4)
+    fs = FusedTwoBlockSolver(t)
     # strict short-horizon match (before f32 rounding noise amplifies in
     # the shrinkage-free nonneg iteration)
     rf = fs.solve({(0, "y"): ys}, niter=21)
@@ -79,10 +79,10 @@ def test_fused_matches_engine_nonneg():
 
 
 def test_fused_lambda_sweep_and_padding():
-    """Per-lane L1 strengths + batch not a tile multiple (auto-pad)."""
+    """Per-lane L1 strengths on a batch of six lanes."""
     A, ys, xt = _setup(B=6)
     t = _bp(A, ys[0])
-    fs = FusedTwoBlockSolver(t, tile_b=4)  # 6 -> padded to 8
+    fs = FusedTwoBlockSolver(t)
     lam = np.logspace(-2, 0, 6)
     rf = fs.solve({(0, "y"): ys, (1, "alpha"): lam}, niter=301)
     assert rf.x0.shape == (6, A.shape[1])
@@ -114,7 +114,7 @@ def test_fused_rejects_unsupported():
 def test_fused_atol_early_exit():
     A, ys, _ = _setup()
     t = _bp(A, ys[0])
-    fs = FusedTwoBlockSolver(t, tile_b=4)
+    fs = FusedTwoBlockSolver(t)
     # f32 floors around ~1e-5 absolute residual on this problem; 1e-3 is
     # comfortably reachable
     rf = fs.solve({(0, "y"): ys}, niter=5001, atol=1e-3)
@@ -143,7 +143,7 @@ def test_fused_realified_complex():
 
     model = _bp(A, ys[0], alpha=0.05)
     re = realify_model(model)
-    fs = FusedTwoBlockSolver(re.model, tile_b=4)
+    fs = FusedTwoBlockSolver(re.model)
     assert fs.prox == "l1_even"
     assert fs.thin  # embedded wide A keeps the thin-spectral kernel
     ys_enc = np.stack([np.asarray(encode(y)) for y in ys])
@@ -182,9 +182,53 @@ def test_fused_two_block_rejects_unsupported_overrides():
     B, N = ys.shape[0], A.shape[1]
     model = Model([LeastSquares(1.0, A, ys[0]), L1Regularizer(0.1, N)],
                   [(1, 0, identity(N), identity(N))])
-    fs = FusedTwoBlockSolver(model, tile_b=2)
+    fs = FusedTwoBlockSolver(model)
     with pytest.raises(ValueError, match="supports per-instance"):
         fs.solve({(0, "y"): ys,
                   (0, "A"): np.zeros((B,) + A.shape)}, niter=5)
     with pytest.raises(ValueError, match="leading batch axis"):
         fs.solve({(1, "alpha"): 0.1}, batch_size=B, niter=5)
+
+
+def test_spm_chunk_matches_numpy_lane_loop():
+    """The SpM chunk (feature-major, whole batch) against the iteration
+    chain written lane by lane in NumPy f64, at a small size."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from admmsolver_tpu.models.applications import (spm_model,
+                                                    synthetic_spm_data)
+    from admmsolver_tpu.ops.kernels import fused_spm_chunk
+    from admmsolver_tpu.parallel import FusedSpMSolver
+
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=7, nw=15)
+    gs = np.asarray(g)[None, :] + 1e-4 * np.random.RandomState(0).randn(
+        5, np.size(g))
+    fs = FusedSpMSolver(spm_model(s, np.asarray(g), prj_sum, prj_w,
+                                  alpha_l1=1e-3))
+    args = [jnp.asarray(a, jnp.float64) for a in cs.chunk_inputs(fs, gs)]
+    out = fused_spm_chunk(*args, n_iters=12)
+    want = cs.numpy_spm_chunk(args, range(5), 12)
+    for a, b in zip(out, want):
+        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-10,
+                                   atol=1e-13)
+
+
+def test_two_block_chunk_carries_previous_iterate():
+    """fused_two_block_chunk returns (x0, x1, h, x0_prev): x0_prev is
+    the block-0 iterate one step before the end."""
+    from admmsolver_tpu.ops.kernels import fused_two_block_chunk
+
+    rng = np.random.RandomState(1)
+    N, B = 6, 3
+    U = jnp.asarray(np.linalg.qr(rng.randn(N, N))[0], jnp.float32)
+    args = (U, U.T, jnp.full((B, N), 0.5, jnp.float32),
+            jnp.asarray(rng.randn(B, N), jnp.float32),
+            jnp.ones((B, 1), jnp.float32),
+            jnp.full((B, 1), 0.1, jnp.float32))
+    z = jnp.zeros((B, N), jnp.float32)
+    a = fused_two_block_chunk(*args, z, z, z, n_iters=4)
+    b = fused_two_block_chunk(*args, z, z, z, n_iters=3)
+    np.testing.assert_array_equal(np.asarray(a[3]), np.asarray(b[0]))

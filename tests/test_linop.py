@@ -306,7 +306,7 @@ def test_vecprod_pad():
 
 
 def test_inv_qr():
-    """LU-free general inverse (the TPU backend lacks f64 LU)."""
+    """LU-free general inverse (QR + triangular solve)."""
     from admmsolver_tpu.ops.linop import inv_qr
 
     rng = np.random.RandomState(0)
@@ -629,15 +629,11 @@ class TestJacobiEigh:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
     def test_psd_project_lowering_has_no_dot(self):
-        """Perf regression lock: the small-n f64 PSD projection must lower
-        without dot_general/dot ops.  The V diag(w) V^T rebuild used to be
-        an einsum whose batched tiny contraction lowered to an f64-emulated
-        GEMM loop on TPU costing ~2x the eigendecomposition itself
-        (BENCH_NOTES lesson 11); it is now a broadcast-multiply + lane
-        reduction on the VPU.  (Gathers from the Jacobi permutations stay:
-        replacing them with static slice-concat permutations measured
-        SLOWER on hardware — 3.9 -> 5.9 ms — and strided f64 slices
-        miscompiled to NaN through the TPU f64 emulation, round 3.)
+        """Structure lock: the small-n f64 PSD projection lowers without
+        dot_general/dot ops — the V diag(w) V^T rebuild is a
+        broadcast-multiply + reduction that fuses with its neighbours,
+        not a batched tiny contraction.  (Gathers from the Jacobi
+        permutations stay.)
         """
         import jax
 
@@ -912,9 +908,9 @@ class TestSignPolynomialProjection:
         from admmsolver_tpu.ops.prox import psd_project
 
         assert prox_mod.JACOBI_MAX_N == 64
-        assert prox_mod.USE_SIGN_ABOVE_JACOBI is True
+        assert prox_mod.USE_SIGN_ABOVE_JACOBI is False
         mp = _pytest.MonkeyPatch()
-        # force the TPU-default sign dispatch on this CPU run
+        # force the sign dispatch
         mp.setattr(prox_mod, "USE_SIGN_ABOVE_JACOBI", "always")
         rng = np.random.RandomState(2)
         n = 100
@@ -940,7 +936,7 @@ class TestSignPolynomialProjection:
         wantc = np.moveaxis(outc, 0, 2).ravel()
         np.testing.assert_allclose(gotc, wantc, rtol=0, atol=1e-9)
         mp.undo()
-        # default dispatch on a NON-TPU backend: exact eigh (no floor)
+        # default dispatch: exact eigh (no floor)
         got_cpu = np.asarray(psd_project(jnp.asarray(x), shape, axis))
         np.testing.assert_allclose(got_cpu, want, rtol=0, atol=1e-11)
 

@@ -75,7 +75,7 @@ def test_f32_single_phase_accuracy():
 
 
 def test_mixed_sdp_preserves_psd_and_quality():
-    """The recommended SDP recipe (solve_mixed, BENCH_NOTES lesson 12):
+    """The mixed-precision SDP recipe (solve_mixed):
     the f32 phase must hand off through the eigh/Jacobi PSD prox without
     losing feasibility, and the polished solution must match pure f64
     fit quality.  Guards the psd_project fast path under both dtypes.

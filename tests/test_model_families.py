@@ -279,7 +279,7 @@ def test_nuclear_prox_matches_scipy():
 
 
 def test_nuclear_prox_gram_svd_matches_xla_svd():
-    """The TPU SVD route (eigh of the Gram, svd_method='gram') computes
+    """The Gram SVD route (eigh of the Gram, svd_method='gram') computes
     the same singular-value soft-threshold as the exact-SVD route: the
     Gram's sqrt(eps) small-singular-value floor sits inside the
     threshold dead zone."""
@@ -308,7 +308,7 @@ def test_nuclear_prox_gram_svd_matches_xla_svd():
 
 
 def test_rpca_solves_with_gram_svd():
-    """Full rpca trajectory with the TPU SVD route matches the exact-SVD
+    """Full rpca trajectory with the Gram SVD route matches the exact-SVD
     trajectory to engine tolerance."""
     from admmsolver_tpu import (L1Regularizer, NuclearNormPenalty,
                                 SimpleOptimizer)
@@ -585,8 +585,7 @@ def test_covariance_denoise_model():
 
 
 def test_nuclear_prox_sign_route_matches_svd():
-    """svd_method='sign' (the SVD-free polar route, auto default on TPU
-    for min(m,n) > 64) reproduces the exact-SVD soft-threshold, through
+    """svd_method='sign' (the SVD-free polar route) reproduces the exact-SVD soft-threshold, through
     the prox AND inside a full rpca solve."""
     import jax.numpy as jnp
 

@@ -4,8 +4,6 @@ The realified model must reproduce the complex ADMM trajectory — both
 ours and the reference's (``/root/reference/src/admmsolver``) — bit-for-
 tolerance: solutions, duals, penalties, and residual histories.
 """
-import sys
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -105,14 +103,11 @@ def test_complex_trajectory_isomorphism():
     np.testing.assert_allclose(np.asarray(orr.mu), np.asarray(oc.mu))
 
 
-def test_realified_matches_reference_complex():
+def test_realified_matches_reference_complex(ref):
     """Realified trajectory == the REFERENCE's complex trajectory."""
-    sys.path.insert(0, "/root/reference/src")
-    from admmsolver.matrix import identity as rid
-    from admmsolver.objectivefunc import L1Regularizer as RL1
-    from admmsolver.objectivefunc import LeastSquares as RLS
-    from admmsolver.optimizer import Model as RModel
-    from admmsolver.optimizer import SimpleOptimizer as ROpt
+    rid = ref.mat.identity
+    RL1, RLS = ref.obj.L1Regularizer, ref.obj.LeastSquares
+    RModel, ROpt = ref.opt.Model, ref.opt.SimpleOptimizer
 
     rng = np.random.RandomState(7)
     M, N, alpha = 6, 12, 0.2
@@ -184,7 +179,8 @@ def test_realified_spm_three_block():
 
 
 def test_realified_batched_solver():
-    """Batched realified solves (the TPU path for complex workloads):
+    """Batched realified solves (the real-arithmetic path for complex
+    workloads):
     every lane matches its single-instance complex solve."""
     rng = np.random.RandomState(9)
     M, N, B = 6, 10, 4
@@ -267,34 +263,30 @@ def test_realify_partial_diagonal_complex_dtype_inner():
                                  np.complexfloating), R
 
 
-def test_complex_guard_on_tpu_backend(monkeypatch):
-    """Building a complex solver on a complex-less backend must raise
-    early with a realify pointer instead of hanging in the compiler."""
-    import jax
-
-    import admmsolver_tpu.backend as be
+def test_complex_model_solves_natively_without_realify():
+    """A complex model solves as complex128 state on the CPU (no guard,
+    no realify step) and lands where its realified embedding does."""
     from admmsolver_tpu import SimpleOptimizer as Opt
 
     rng = np.random.RandomState(13)
     model = _complex_bp_model(rng)
-
-    monkeypatch.setattr(be.jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="realify_model"):
-        Opt(model)
-    with pytest.raises(ValueError, match="realify_model"):
-        BatchedSolver(model)
-    # explicit complex dtype on a real model: also guarded
+    o = Opt(model)
+    o.solve(150)
+    assert np.iscomplexobj(np.asarray(o.x[0]))
+    bs = BatchedSolver(model)
+    assert np.issubdtype(bs.dtype, np.complexfloating)
+    # explicit complex dtype on a real model is accepted as well
     real_model = Model(
         [LeastSquares(1.0, np.random.RandomState(0).randn(4, 6),
                       np.zeros(4)), L1Regularizer(0.1, 6)],
         [(1, 0, identity(6), identity(6))])
-    bs = BatchedSolver(real_model)
-    with pytest.raises(ValueError, match="realify_model"):
-        bs.solve({(0, "y"): np.zeros((2, 4))}, niter=1,
-                 dtype="complex128")
-    # the realified model sails through
+    r = BatchedSolver(real_model).solve(
+        {(0, "y"): np.zeros((2, 4))}, niter=3, dtype="complex128")
+    assert np.iscomplexobj(np.asarray(r.x[0]))
+    # same fixed point as the realified embedding
     re = realify_model(model)
-    BatchedSolver(re.model)
-    # escape hatch
-    monkeypatch.setenv("ADMMSOLVER_TPU_ALLOW_COMPLEX", "1")
-    BatchedSolver(model)
+    orr = Opt(re.model)
+    orr.solve(150)
+    for xc, xr in zip(o.x, re.decode_x(orr.x)):
+        np.testing.assert_allclose(np.asarray(xr), np.asarray(xc),
+                                   atol=1e-10)

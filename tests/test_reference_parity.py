@@ -1,33 +1,12 @@
 """Live parity tests against the reference implementation.
 
-Imports SpM-lab/admmsolver from ``/root/reference/src`` (read-only, used
-purely as a numerical oracle; skipped when unavailable) and checks that the
-TPU engine reproduces its solutions AND its residual trajectories on the
-anchor workloads (SURVEY.md §4: reference-parity idiom)."""
-import sys
-
+Imports SpM-lab/admmsolver from ``$ADMMSOLVER_REFERENCE_SRC`` (the ``ref``
+fixture in ``conftest.py``; read-only, used purely as a numerical oracle;
+skipped when unavailable) and checks that the engine reproduces its
+solutions AND its residual trajectories on the anchor workloads
+(SURVEY.md §4: reference-parity idiom)."""
 import numpy as np
 import pytest
-
-
-REF_PATH = "/root/reference/src"
-
-
-@pytest.fixture(scope="module")
-def ref():
-    sys.path.insert(0, REF_PATH)
-    try:
-        import admmsolver.optimizer as ref_opt  # noqa: F401
-        import admmsolver.objectivefunc as ref_obj  # noqa: F401
-        import admmsolver.matrix as ref_mat  # noqa: F401
-    except ImportError:
-        pytest.skip("reference implementation not available")
-    finally:
-        sys.path.remove(REF_PATH)
-    import types
-
-    ns = types.SimpleNamespace(opt=ref_opt, obj=ref_obj, mat=ref_mat)
-    return ns
 
 
 def _run_ref(ref, A, y, alpha_l1, niter, mu0=None):
@@ -41,7 +20,7 @@ def _run_ref(ref, A, y, alpha_l1, niter, mu0=None):
     return o
 
 
-def _run_tpu(A, y, alpha_l1, niter, mu0=None):
+def _run_ours(A, y, alpha_l1, niter, mu0=None):
     from admmsolver_tpu import (L1Regularizer, LeastSquares, Model,
                                 SimpleOptimizer, identity)
 
@@ -57,7 +36,7 @@ def test_lasso_trajectory_parity(ref):
     y = np.array([2.0])
     A = np.array([[2.0, 1.0]])
     r = _run_ref(ref, A, y, 0.1, 100)
-    t = _run_tpu(A, y, 0.1, 100)
+    t = _run_ours(A, y, 0.1, 100)
     assert len(r._primal_residual) == len(t._primal_residual)
     np.testing.assert_allclose(t._primal_residual, r._primal_residual,
                                rtol=1e-6, atol=1e-13)
@@ -75,7 +54,7 @@ def test_basis_pursuit_parity(ref):
     xa = rng.permutation(xa)
     y = A @ xa
     r = _run_ref(ref, A, y, 0.1, 100)
-    t = _run_tpu(A, y, 0.1, 100)
+    t = _run_ours(A, y, 0.1, 100)
     assert len(r._primal_residual) == len(t._primal_residual)
     np.testing.assert_allclose(np.asarray(t.x[0]), r.x[0], atol=1e-8)
     np.testing.assert_allclose(t._primal_residual, r._primal_residual,
@@ -145,7 +124,7 @@ def test_mu0_override_parity(ref):
     y = np.array([2.0])
     A = np.array([[2.0, 1.0]])
     r = _run_ref(ref, A, y, 0.1, 60, mu0=0.25)
-    t = _run_tpu(A, y, 0.1, 60, mu0=0.25)
+    t = _run_ours(A, y, 0.1, 60, mu0=0.25)
     np.testing.assert_allclose(np.asarray(t.x[0]), r.x[0], atol=1e-12)
     assert len(r._primal_residual) == len(t._primal_residual)
 
